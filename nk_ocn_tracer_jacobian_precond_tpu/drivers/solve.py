@@ -6,7 +6,7 @@ factor once, then for each comma-separated variable group read the tracer
 field(s) from the inout file, flatten via the index maps, solve, scatter
 back preserving land values, and write in place. The reference's
 replicated/distributed split (-n nprow[,npcol] process grid) maps to the
-backend choice here: single-chip or mesh-sharded TPU factorization; -n is
+backend choice here: single-device or mesh-sharded factorization; -n is
 accepted for CLI compatibility and sets the requested device count.
 """
 
@@ -66,11 +66,11 @@ def run_solve(matrix_fname: str, inout_fname: str, vars_arg: str,
 
     # Solve RHS groups in bounded batches (multi-RHS amortization: the
     # reference loops one var at a time, ABglobal.c:370; batching is
-    # strictly better on TPU). Staging is STREAMED rhs_chunk groups at a
-    # time — the rebuild of get_B_dist/put_B_dist's bounded per-rank RHS
-    # segments (solve_ABdist.c:248-418): host and device RHS memory stay
-    # O(flat_len * rhs_chunk) however many tracer variables the run
-    # covers, and each chunk is written back in place before the next is
+    # strictly better on an accelerator). Staging is STREAMED rhs_chunk
+    # groups at a time — the rebuild of get_B_dist/put_B_dist's bounded
+    # per-rank RHS segments (solve_ABdist.c:248-418): host and device RHS
+    # memory stay O(flat_len * rhs_chunk) however many tracer variables
+    # the run covers, and each chunk is written back in place before the next is
     # read. Under a mesh with an "rhs" axis the chunk additionally shards
     # across device groups (parallel/mesh.py).
     results = {"residuals": {}, "groups": groups}
@@ -121,17 +121,11 @@ def run_memplan(matrix_fname: str, n_devices: int, dbg_lvl: int = 0) -> int:
         sym = symbolic_from_matrix(maps, matrix)
     with timed("round plans"):
         plans = build_plan(sym, matrix, batch_multiple=n_devices)
-    # size with the same precision rule the engine applies (float64 only
-    # on x64-enabled CPU backends, mf_jax.JaxMultifrontal) — a float32
-    # plan would understate an actual CPU run's memory by 2x
-    dtype_name = "float32"
-    bytes_per_elem = 4
-    try:
-        import jax
-        if jax.config.jax_enable_x64 and jax.default_backend() == "cpu":
-            dtype_name, bytes_per_elem = "float64", 8
-    except Exception:
-        pass
+    # size with the same precision rule the engine applies (float64
+    # whenever x64 is enabled, mf_jax.JaxMultifrontal)
+    import jax
+    dtype_name, bytes_per_elem = (("float64", 8) if jax.config.jax_enable_x64
+                                  else ("float32", 4))
     mp = plan_memory(plans, n_devices=n_devices,
                      bytes_per_elem=bytes_per_elem)
     gb = 1 / 2 ** 30
@@ -181,13 +175,13 @@ def main(argv=None) -> int:
     p.add_argument("inout_fname", nargs="?", default=None)
     args = p.parse_args(argv)
     if args.backend != "scipy":
-        try:
-            # entry-point scope (drivers own process-global config, the
-            # library does not): float64 residual accumulation on device
-            import jax
-            jax.config.update("jax_enable_x64", True)
-        except Exception:
-            pass
+        # entry-point scope (drivers own process-global config, the
+        # library does not): float64 factors and residuals on device
+        import jax
+
+        from ..utils.backend import setup_compile_cache
+        jax.config.update("jax_enable_x64", True)
+        setup_compile_cache()
     n_devices = None
     if args.npgrid:
         parts = [int(x) for x in args.npgrid.split(",")]

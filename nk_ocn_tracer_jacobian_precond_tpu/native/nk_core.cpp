@@ -1,9 +1,9 @@
-// Native host-side core for the TPU-native NK preconditioner framework.
+// Native host-side core for the NK preconditioner framework.
 //
 // The reference delegates its heavy host-side work to external native
 // libraries (libnetcdf for IO, SuperLU_DIST/ParMETIS for symbolic
 // analysis); this module is the rebuild's native layer for the hot
-// host-side paths that feed the TPU:
+// host-side paths that feed the device:
 //
 //   canonicalize_coo:  COO -> canonical CSR with the reference's
 //       semantics (duplicates summed in emission order, exact zeros

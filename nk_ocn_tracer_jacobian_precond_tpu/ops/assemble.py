@@ -4,7 +4,7 @@ Rebuild of gen_sparse_matrix (src/matrix.c:3774-3840). The Jacobian lives
 as a *structured stencil tensor* — per-offset dense coefficient fields plus
 optional within-column dense blocks and cross-tracer diagonals — which is
 (a) the natural vectorized assembly target, (b) directly usable as a
-matrix-free SpMV operator on TPU, and (c) deterministically compacted into
+matrix-free SpMV operator on the device, and (c) deterministically compacted into
 the reference's canonical CSR (duplicates summed in slot order, exact zeros
 stripped, columns sorted; src/matrix.c:3826-3832).
 """

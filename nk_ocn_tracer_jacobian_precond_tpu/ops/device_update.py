@@ -5,7 +5,7 @@ outer iteration with NEW VALUES on the SAME pattern (its hot loops are
 the per-cell re-assembly passes, src/matrix.c:1224-1280 and 2233-2376,
 followed by SuperLU_DIST's options.Fact = SamePattern path). Re-running
 the host assembly + canonicalization per iteration costs seconds at gx3
-and minutes at gx1 of pure host passes feeding an idle TPU.
+and minutes at gx1 of pure host passes feeding an idle device.
 
 This module freezes the VALUE PIPELINE instead: the structured stencil
 form (ops/assemble.py) is a set of dense coefficient fields; the

@@ -17,7 +17,7 @@ from ..testdata import make_circ_file
 def make_demo_assembly(imt: int = 16, jmt: int = 12, km: int = 5,
                        seed: int = 0, **opt_kw):
     """Generate a synthetic circulation file and assemble its Jacobian."""
-    d = tempfile.mkdtemp(prefix="nk_tpu_demo_")
+    d = tempfile.mkdtemp(prefix="nk_demo_")
     circ = os.path.join(d, "circ.nc")
     make_circ_file(circ, imt=imt, jmt=jmt, km=km, seed=seed)
     defaults = dict(hmix_type="const", vmix_type="file",

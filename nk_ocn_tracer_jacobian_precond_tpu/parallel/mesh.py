@@ -1,7 +1,7 @@
 """Device mesh construction.
 
 The reference organizes ranks as an nprow x npcol MPI process grid
-(src/solve_ABglobal.c:307 superlu_gridinit). The TPU equivalent is a named
+(src/solve_ABglobal.c:307 superlu_gridinit). The JAX equivalent is a named
 jax.sharding.Mesh: the solver shards front batches over the leading axis
 ("front") and the stencil SpMV shards the latitude axis over it ("band" —
 the 1-D block-row domain decomposition, the analog of
@@ -14,7 +14,7 @@ An optional second mesh axis "rhs" adds data parallelism over right-hand
 sides: the solve's workspace W (flat_len+1, nrhs) shards its RHS axis
 over it, so large tracer batches (the many-variable loop of
 solve_ABglobal.c:370-388) split across device groups while the factors
-replicate across the rhs axis — the TPU-native form of get_B_dist's
+replicate across the rhs axis — the device-mesh form of get_B_dist's
 segment scatter (solve_ABdist.c:248-418) applied to the *batch*
 dimension, which is the one that actually scales in this workflow.
 """

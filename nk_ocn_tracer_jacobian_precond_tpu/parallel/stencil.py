@@ -1,4 +1,4 @@
-"""Matrix-free stencil SpMV operator — the TPU-native form of the Jacobian.
+"""Matrix-free stencil SpMV operator — the device-native form of the Jacobian.
 
 The assembled Jacobian's structured form (per-offset dense coefficient
 fields, ops/assemble.py) applies to tracer fields directly as shifted

@@ -7,9 +7,9 @@ contract is a Factorization object with a multi-RHS ``solve``; backends:
 
   * "scipy"       — host SuperLU (scipy.sparse.linalg.splu); correctness
                     bridge and small-problem baseline.
-  * "multifrontal"— the TPU-native solver: host-side nested-dissection
+  * "multifrontal"— the device solver: host-side nested-dissection
                     symbolic analysis over water-column blocks, numeric
-                    factorization as batched dense MXU kernels, level-
+                    factorization as batched dense GEMM kernels, level-
                     scheduled block triangular solves (solver/mf*.py).
 
 All backends refine to ~1e-12 relative residual by default (matching the

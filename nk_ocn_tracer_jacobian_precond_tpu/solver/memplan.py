@@ -2,8 +2,8 @@
 
 The reference's distributed mode exists because the factors outgrow one
 node's memory (src/solve_ABdist.c:106-244 block-row-distributes the
-matrix; SuperLU_DIST distributes L/U over the process grid). The TPU
-rebuild's equivalent question — "how many chips does this problem need?"
+matrix; SuperLU_DIST distributes L/U over the process grid). The
+rebuild's equivalent question — "how many devices does this problem need?"
 — is answerable *before* factorization, because the round plans fix every
 padded shape. This module walks a plan and reports:
 
@@ -12,8 +12,9 @@ padded shape. This module walks a plan and reports:
     masked row-sharded rounds),
   * the Schur-complement live set over the round schedule (a round's
     (B,M,M) stack stays allocated until its last consuming round), and
-  * the per-round transient peak (the full (B,N,N) front stack plus the
-    bounded extend-add temporaries),
+  * the per-round transient peak: the full (B,N,N) front stack with the
+    bounded extend-add temporaries, and the partial-factor program's
+    input front, outputs and XLA temporaries (pf_temp_bytes),
 
 each split replicated-vs-sharded for an n_devices mesh (rounds whose
 batch divides the mesh shard over it; tree-top rounds stay replicated —
@@ -54,6 +55,22 @@ class MemoryPlan:
                 f"on {self.n_devices} device(s)")
 
 
+def pf_temp_bytes(B: int, P: int, N: int, bytes_per_elem: int,
+                  native_lu: bool, panel: int = 128) -> int:
+    """XLA temporaries of one _partial_factor program: an envelope fitted
+    to the compiled memory analysis, not a derivation.
+
+    The panel loop is unrolled over ceil(P/panel) panels, and on the GPU
+    XLA keeps about one front-sized buffer per panel: every gx3deep round
+    on an H100 compiled to temporaries of 3.09-9.96x its (B,N,N) front
+    stack, each within max(3.5, 1 + panels) fronts (PERF.md,
+    scripts/factor_memory.py). Native-LU rounds (no panel loop) measured
+    at most 2.0x there; on the CPU every round stays within 3.5x."""
+    front = B * N * N * bytes_per_elem
+    panels = 0 if native_lu else -(-P // panel)
+    return max(7 * front // 2, (1 + panels) * front)
+
+
 def plan_memory(plans, n_devices: int = 1, bytes_per_elem: int = 4,
                 row_shard_min: int = 1024) -> MemoryPlan:
     """Exact padded-shape memory walk of a build_plan() output.
@@ -62,7 +79,13 @@ def plan_memory(plans, n_devices: int = 1, bytes_per_elem: int = 4,
     (B divides the mesh) divide everything by n_devices; small-batch
     big-front rounds (N >= row_shard_min, N divisible) divide their
     RESIDENT factor arrays by n_devices (front-axis sharding,
-    _shard_factors) while their transients stay replicated."""
+    _shard_factors) while their transients stay replicated.
+
+    Each round has two phases. During assembly and extend-add the source
+    Schur stacks are live beside the front stack. During the partial
+    factor the sources consumed by this round are gone, and the program
+    holds its input front, its outputs (this round's factors and Schur
+    stack) and its temporaries (pf_temp_bytes)."""
     e = bytes_per_elem
 
     def shard(nbytes: int, B: int) -> int:
@@ -114,9 +137,9 @@ def plan_memory(plans, n_devices: int = 1, bytes_per_elem: int = 4,
         f_dev = (shard_dim(k_b, B, P, qk) + shard_dim(u12, B, M, q)
                  + shard_dim(l21, B, M, q) + shard(perm, B) + kd)
         fac_dev += f_dev
-        # transient working set of this round: the full (B,N,N) front
-        # stack, the assembly index arrays, and the bounded extend-add
-        # temporaries (~1 GB, see _extend_add's chunking)
+        # assembly / extend-add phase: the full (B,N,N) front stack, the
+        # assembly index arrays, and the bounded extend-add temporaries
+        # (~1 GB, see _extend_add's chunking)
         a_idx = (plan.a_pos.size * plan.a_pos.itemsize
                  + plan.a_src.size * plan.a_src.itemsize
                  + plan.a_col.size * plan.a_col.itemsize
@@ -128,30 +151,37 @@ def plan_memory(plans, n_devices: int = 1, bytes_per_elem: int = 4,
         for g in plan.child_groups:
             msrc = plans[g.src_round].M + 1
             ea = max(ea, min(int(5e8), len(g.src_slots) * N * msrc * e) * 3)
-        trans = B * N * N * e + a_idx + ea
-        trans_dev = shard(B * N * N * e, B) + a_idx + ea
-        # Schur stack this round produces (row-sharded rounds shard it
-        # on the trailing axis, _shard_schur)
-        s_bytes = B * M * M * e
-        live[rnd] = (s_bytes, shard_dim(s_bytes, B, M, q))
-        # the round's true high-water mark: factors resident through this
-        # round (this round's FP/L21 coexist with its front stack at the
-        # tail of the kernel) + the front stack and bounded temporaries +
-        # every Schur stack live DURING the round (pre-free: sources being
-        # consumed by the extend-add plus the round's own output). Counted
-        # exactly once — the old split into transient + post-free live set
-        # double-counted surviving stacks.
-        s_during = sum(v[0] for v in live.values())
-        s_during_dev = sum(v[1] for v in live.values())
-        hw = fac_tot + trans + s_during
-        hw_dev = fac_dev + trans_dev + s_during_dev
+        front = B * N * N * e
+        front_dev = shard(front, B)
+        asm = front + a_idx + ea
+        asm_dev = front_dev + a_idx + ea
+        s_before = sum(v[0] for v in live.values())
+        s_before_dev = sum(v[1] for v in live.values())
         # free the stacks whose last consumer is this round
         for src, lr in list(last_use.items()):
             if lr == rnd:
                 live.pop(src, None)
                 del last_use[src]
-        s_live = sum(v[0] for v in live.values())
-        s_live_dev = sum(v[1] for v in live.values())
+        s_kept = sum(v[0] for v in live.values())
+        s_kept_dev = sum(v[1] for v in live.values())
+        # partial-factor phase: input front + temporaries + outputs (this
+        # round's factors and its Schur stack; row-sharded rounds shard
+        # the stack on the trailing axis, _shard_schur)
+        s_bytes = B * M * M * e
+        s_dev = shard_dim(s_bytes, B, M, q)
+        temp = pf_temp_bytes(B, P, N, e, native_lu=B <= 2 and n_devices == 1,
+                             panel=PANEL)
+        pf = front + temp
+        pf_dev = front_dev + shard(temp, B)
+        trans = max(asm, pf)
+        trans_dev = max(asm_dev, pf_dev)
+        fac_prev, fac_prev_dev = fac_tot - f_bytes, fac_dev - f_dev
+        hw = fac_prev + max(s_before + asm, s_kept + pf + f_bytes + s_bytes)
+        hw_dev = fac_prev_dev + max(s_before_dev + asm_dev,
+                                    s_kept_dev + pf_dev + f_dev + s_dev)
+        live[rnd] = (s_bytes, s_dev)
+        s_live = s_kept + s_bytes
+        s_live_dev = s_kept_dev + s_dev
         schur_peak = max(schur_peak, s_live)
         schur_peak_dev = max(schur_peak_dev, s_live_dev)
         trans_peak = max(trans_peak, trans)

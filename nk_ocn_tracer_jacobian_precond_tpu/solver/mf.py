@@ -88,6 +88,9 @@ def equilibrate(matrix: SparseMatrix, ruiz_iters: int = 8):
 
 
 class MultifrontalFactorization:
+    """impl: "jax" (the device engine; "auto" means the same) or "numpy"
+    (the host reference engine, explicit only)."""
+
     def __init__(self, matrix: SparseMatrix, impl: str = "auto",
                  leaf_size: int = 32, refine_tol: float = 1e-13,
                  maps=None, sym: SymbolicFactorization | None = None,
@@ -109,7 +112,7 @@ class MultifrontalFactorization:
             from ..parallel.mesh import make_mesh
             mesh = make_mesh(n_devices, ("front",), rhs_devices=rhs_devices)
         self.mesh = mesh
-        if mesh is not None and impl in ("auto", "numpy"):
+        if impl == "auto" or mesh is not None:
             impl = "jax"
         if sym is None:
             if maps is None:
@@ -117,8 +120,6 @@ class MultifrontalFactorization:
             with timed("symbolic analysis"):
                 sym = symbolic_from_matrix(maps, matrix, leaf_size=leaf_size)
         self.sym = sym
-        if impl == "auto":
-            impl = "jax" if _jax_usable() else "numpy"
         self.impl = impl
         if equilibrate_matrix:
             with timed("equilibration"):
@@ -169,6 +170,8 @@ class MultifrontalFactorization:
                     dbg(1, f"numeric factors saved to {numeric_checkpoint}")
             else:
                 raise ValueError(f"unknown multifrontal impl: {impl}")
+        dbg(1, f"factor precision: "
+               f"{np.dtype(getattr(self.engine, 'prec', np.float64)).name}")
 
     def refactor(self, matrix: SparseMatrix | None = None) -> None:
         """Numeric refactorization with the same sparsity pattern — the
@@ -189,7 +192,8 @@ class MultifrontalFactorization:
             ref = getattr(self, "_refiner", None)
             if ref is not None:
                 ref.rebind(self.matrix, dr=self.dr, dc=self.dc,
-                           precond_host=self._precond_solve)
+                           precond_host=_scaled_solve(self.engine, self.dr,
+                                                      self.dc))
         with timed("numeric refactorization"):
             self.engine._factorize(self._fac_matrix)
 
@@ -244,11 +248,10 @@ class MultifrontalFactorization:
             return False
         if getattr(self.engine, "prec", None) != jnp.float32:
             return False
-        # a float64 factor set that cannot fit the device is a compile
-        # OOM, not a repair: refuse up front with actionable advice
-        # (measured: gx3deep float64 peak 21.8 GB vs one v5e's 15.75 GB —
-        # the deep problems need the multi-device mesh, exactly like the
-        # reference's 144-rank SuperLU_DIST runs)
+        # a float64 factor set that cannot fit the device is an OOM, not
+        # a repair: refuse up front with actionable advice (a problem
+        # whose float64 plan exceeds one device needs the multi-device
+        # mesh, like the reference's 144-rank SuperLU_DIST runs)
         try:
             from .memplan import plan_memory
             ndev = (self.mesh.shape[self.engine.mesh_axis]
@@ -274,8 +277,6 @@ class MultifrontalFactorization:
         # both sets resident at once is an avoidable OOM
         self.engine.factors = None
         self._refiner = None
-        import gc
-        gc.collect()
         with timed("float64 escalation refactorization"):
             self.engine = JaxMultifrontal(
                 self.sym, self._fac_matrix, mesh=self.mesh,
@@ -286,11 +287,7 @@ class MultifrontalFactorization:
 
     def _precond_solve(self, b: np.ndarray) -> np.ndarray:
         """Apply the (scaled) factorization: x ~= A^{-1} b."""
-        if self.dr is None:
-            return np.asarray(self.engine.solve(b), dtype=np.float64)
-        scaled_b = self.dr[:, None] * b if b.ndim == 2 else self.dr * b
-        y = np.asarray(self.engine.solve(scaled_b), dtype=np.float64)
-        return self.dc[:, None] * y if y.ndim == 2 else self.dc * y
+        return _scaled_solve(self.engine, self.dr, self.dc)(b)
 
     def _device_refiner(self):
         if getattr(self, "_refiner", None) is None:
@@ -298,7 +295,7 @@ class MultifrontalFactorization:
             self._refiner = DeviceRefiner(
                 self.engine, self.matrix, dr=self.dr, dc=self.dc,
                 tol=max(self.refine_tol, 1e-13),
-                precond_host=self._precond_solve)
+                precond_host=_scaled_solve(self.engine, self.dr, self.dc))
         return self._refiner
 
     def solve(self, b: np.ndarray, refine: bool = True) -> np.ndarray:
@@ -378,29 +375,41 @@ class MultifrontalFactorization:
         return X
 
 
+def _scaled_solve(engine, dr, dc):
+    """x ~= A^{-1} b through the (scaled) factorization, as a callable
+    that holds the engine and the scalings but not the facade. The facade
+    owns the refiner that keeps this callable; a bound method here would
+    close a reference cycle that keeps every factor on the device until
+    the cyclic garbage collector runs."""
+    def apply(b: np.ndarray) -> np.ndarray:
+        if dr is None:
+            return np.asarray(engine.solve(b), dtype=np.float64)
+        scaled_b = dr[:, None] * b if b.ndim == 2 else dr * b
+        y = np.asarray(engine.solve(scaled_b), dtype=np.float64)
+        return dc[:, None] * y if y.ndim == 2 else dc * y
+    return apply
+
+
 def _device_memory_limit() -> int | None:
     """Per-device accelerator memory in bytes, when the backend exposes
-    it (TPU memory_stats); None on hosts (CPU 'devices' share RAM and a
+    it (device memory_stats); None on hosts (CPU 'devices' share RAM and a
     plan-vs-RAM comparison there is the memplan's job, not this guard)."""
-    try:
-        import jax
-        d = jax.devices()[0]
-        if d.platform == "cpu":
-            return None
-        stats = d.memory_stats() or {}
-        return stats.get("bytes_limit") or None
-    except Exception:
+    import jax
+
+    from ..utils.backend import platform
+    if platform() == "cpu":
         return None
+    stats = jax.devices()[0].memory_stats() or {}
+    return stats.get("bytes_limit") or None
 
 
 def _resolve_precision(precision):
     """Facade-level precision spec: a dtype, one of the strings
     'f32'/'float32'/'f64'/'float64'/'auto', or None. 'auto'/None defer to
-    the engine's backend default (float32 on TPU, float64 on CPU tests)
-    plus the runtime escalation path (_maybe_escalate_precision). The
-    NK_PREC env var overrides an unset precision — the production knob
-    for forcing float64 factors on deep problems up front instead of
-    paying a doomed float32 factorization first."""
+    the engine's default (float64 whenever x64 is enabled, on every
+    backend); float32 factors get the runtime escalation path
+    (_maybe_escalate_precision). The NK_PREC env var overrides an unset
+    precision."""
     import os
     if precision is None:
         precision = os.environ.get("NK_PREC") or None
@@ -434,10 +443,3 @@ def _maps_from_matrix(matrix: SparseMatrix):
         "MultifrontalFactorization needs index maps (pass maps=...) when "
         "constructed from a bare SparseMatrix")
 
-
-def _jax_usable() -> bool:
-    try:
-        import jax  # noqa: F401
-        return True
-    except Exception:
-        return False

@@ -10,7 +10,7 @@ stencil offsets. So the ordering operates on the 2-D graph of *water
 columns* — whole columns become dense blocks (every within-column coupling,
 including matrix_file vertical mixing and generic-tracer source levels, is
 inside a block) and nested dissection on the 2-D column graph yields the
-supernode tree whose fronts the TPU factors as dense MXU tiles.
+supernode tree whose fronts the device factors as dense GEMM tiles.
 
 Coupled-tracer systems fold in naturally: a super-column holds the cells
 of ALL tracers at one (j,i) (cross-tracer coupling is cell-diagonal,

@@ -14,7 +14,7 @@ exact — no extra fill beyond the dense blocks.
 The output is a static execution plan: per processing round, the list of
 fronts with their cell index sets, extend-add index maps into the parent
 front, and A-assembly scatter maps. The numeric phase (numpy or JAX) just
-replays the plan — the TPU side never sees a pointer or a dynamic shape.
+replays the plan — the device side never sees a pointer or a dynamic shape.
 """
 
 from __future__ import annotations
@@ -166,8 +166,8 @@ def amalgamate(graph: ColumnGraph, tree: DissectionTree,
 
     This is the standard multifrontal trick SuperLU/MUMPS apply during
     supernode detection (reference SuperLU_brief_tree.txt:12-14's panels
-    come from merged supernodes); on the TPU it is the difference between
-    rounds of MXU-starved sub-tile GEMMs and rounds of near-tile-size
+    come from merged supernodes); on the device it is the difference between
+    rounds of starved sub-tile GEMMs and rounds of near-tile-size
     batched GEMMs. Merging child c into parent p is exact — no symbolic
     recomputation needed — because border(c) \\ owned(p) is a subset of
     border(p) (child borders live entirely in ancestor separators), so

@@ -3,7 +3,7 @@
 The reference's only perf visibility was SuperLU's PStatPrint and an
 external memory profiler (SURVEY.md §5). Here: cumulative per-phase
 wall-clock stats collectable from any timed() block, and a context manager
-around jax.profiler for full TPU traces.
+around jax.profiler for full device traces.
 """
 
 from __future__ import annotations

@@ -184,7 +184,7 @@ def test_memplan_matches_mesh_shard_sizes(problem):
 @pytest.mark.skipif(len(jax.devices()) < 8, reason="needs 8 devices")
 def test_rhs_axis_data_parallel_solve(problem):
     """A 2-axis ("front", "rhs") mesh: RHS batches shard data-parallel
-    across device groups (the TPU-native get_B_dist) while fronts shard
+    across device groups (the device-mesh get_B_dist) while fronts shard
     within a group — results must match the single-device engine."""
     matrix, maps = problem
     mf_1 = MultifrontalFactorization(matrix, impl="jax", maps=maps)
@@ -198,82 +198,3 @@ def test_rhs_axis_data_parallel_solve(problem):
     X1 = mf_1.solve(B)
     Xr = mf_r.solve(B)
     np.testing.assert_allclose(Xr, X1, rtol=1e-9, atol=1e-11)
-
-
-@pytest.mark.skipif(len(jax.devices()) < 8, reason="needs 8 devices")
-def test_pallas_panel_under_sharding(problem, monkeypatch):
-    """VERDICT round-2 item 4: batch-sharded rounds run the Pallas panel
-    kernel inside jax.shard_map on each device's local batch slice
-    (interpret-mode on the simulated CPU mesh) instead of falling back to
-    the XLA formulation — and produce factors equal to the GSPMD path's
-    within float32 roundoff of an identical algorithm."""
-    import jax.numpy as jnp
-    matrix, maps = problem
-    # float32 factors: the TPU configuration (the Pallas kernel is
-    # float32-only; CPU mesh engines default to f64 under x64)
-    mf_ref = MultifrontalFactorization(matrix, impl="jax", maps=maps,
-                                       n_devices=8, precision=jnp.float32)
-    assert mf_ref.engine.shmap_rounds == 0   # CPU default: GSPMD path
-
-    monkeypatch.setenv("NK_PALLAS_SHMAP", "1")
-    mf_sm = MultifrontalFactorization(matrix, impl="jax", maps=maps,
-                                      sym=mf_ref.sym, n_devices=8,
-                                      precision=jnp.float32)
-    eng = mf_sm.engine
-    assert eng._pallas_shmap
-    assert eng.shmap_rounds >= 1, \
-        "no batch-sharded round took the shard_map pallas panel path"
-
-    # factor parity: the pallas panel implements the same restricted
-    # pivoting + GESP thresholding as the XLA formulation
-    for (K1, U1, L1, p1, _), (K2, U2, L2, p2, _) in zip(
-            mf_ref.engine.factors, eng.factors):
-        np.testing.assert_array_equal(np.asarray(p1), np.asarray(p2))
-        np.testing.assert_allclose(np.asarray(K1), np.asarray(K2),
-                                   rtol=1e-5, atol=1e-6)
-
-    rng = np.random.default_rng(9)
-    B = rng.standard_normal((matrix.flat_len, 2))
-    X = mf_sm.solve(B)
-    Xr = mf_ref.solve(B)
-    A = matrix.to_scipy()
-    rel = np.linalg.norm(A @ X - B, axis=0) / np.linalg.norm(B, axis=0)
-    relr = np.linalg.norm(A @ Xr - B, axis=0) / np.linalg.norm(B, axis=0)
-    # same contract as the GSPMD-path engine achieves on this system
-    assert rel.max() <= max(1e-10, 10 * relr.max())
-
-
-@pytest.mark.skipif(len(jax.devices()) < 8, reason="needs 8 devices")
-def test_df64_panel_under_sharding(problem, monkeypatch):
-    """VERDICT round-3 item 4: the float64 (production-precision) engine
-    runs the double-f32 Pallas panel under shard_map — same mechanism as
-    the f32 kernel — instead of the XLA f64 panel loop. Interpret mode on
-    the simulated mesh; factors must agree with the GSPMD f64 path to
-    df64 (~2^-48) precision and the refined solve must hold the 1e-10
-    contract."""
-    import jax.numpy as jnp
-    matrix, maps = problem
-    mf_ref = MultifrontalFactorization(matrix, impl="jax", maps=maps,
-                                       n_devices=8, precision=jnp.float64)
-    assert mf_ref.engine.shmap_rounds == 0
-
-    monkeypatch.setenv("NK_PALLAS_SHMAP", "1")
-    mf_sm = MultifrontalFactorization(matrix, impl="jax", maps=maps,
-                                      sym=mf_ref.sym, n_devices=8,
-                                      precision=jnp.float64)
-    eng = mf_sm.engine
-    assert eng._pallas_shmap
-    assert eng.shmap_rounds >= 1, \
-        "no batch-sharded round took the shard_map df64 panel path"
-    for (K1, U1, L1, p1, _), (K2, U2, L2, p2, _) in zip(
-            mf_ref.engine.factors, eng.factors):
-        np.testing.assert_array_equal(np.asarray(p1), np.asarray(p2))
-        np.testing.assert_allclose(np.asarray(K1), np.asarray(K2),
-                                   rtol=1e-9, atol=1e-11)
-
-    rng = np.random.default_rng(9)
-    B = rng.standard_normal((matrix.flat_len, 2))
-    X = mf_sm.solve(B)
-    A = matrix.to_scipy()
-    rel = np.linalg.norm(A @ X - B, axis=0) / np.linalg.norm(B, axis=0)
-    assert rel.max() <= 1e-10

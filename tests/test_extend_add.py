@@ -1,38 +1,35 @@
-"""Bit-exactness of the extend-add formulations (VERDICT round-3 item 2).
+"""Exactness of the extend-add and the assembly.
 
-The float64-on-TPU wave extend-add (solver/mf_jax.py::_extend_add,
-wlinks branch) reformulates the Schur scatter-add as native-f32 one-hot
-GEMMs over a 3-way hi/mid/lo mantissa split. Every step is pure
-selection (one unit coefficient per output element), so the result must
-be BIT-EQUAL to the straightforward f64 gather/scatter — this test
-proves it on CPU (NK_EA_FORCE_WAVES=1 runs the same trace the TPU
-takes), against both a numpy loop oracle and the default path.
+Both kernels move values without arithmetic on them (selection, and adds
+of disjoint contributions), so on the CPU they must be BIT-EQUAL to a
+straightforward numpy loop: the gather extend-add
+(solver/mf_jax.py::_extend_add, duplicate destinations summed in link
+order) and the ELL scatter plus spill scatter of _assemble.
 
 Reference analog: the extend-add inside SuperLU_DIST's pdgstrf
-(SuperLU_brief_tree.txt:12-14) — there a plain f64 scatter; here the
-formulation XLA:TPU's f64 lowering pathologies force.
+(SuperLU_brief_tree.txt:12-14), a plain float64 scatter.
 """
-
-import os
 
 import numpy as np
 import pytest
 
 import jax.numpy as jnp
 
+from nk_ocn_tracer_jacobian_precond_tpu.solver import mf_jax
 from nk_ocn_tracer_jacobian_precond_tpu.solver.mf_jax import (
-    _dst_gather_waves, _ea_chunk_len_waves, _extend_add)
+    _assemble, _extend_add)
 
 
 def _synthetic(B, N, M, Sb, L, seed=0):
-    """Adversarial f64 data: full-width mantissas (splitting into f32
-    components must lose nothing) and magnitudes spanning ~1e12."""
+    """Adversarial f64 data: full-width mantissas and magnitudes spanning
+    ~1e12, duplicate destination slots."""
     rng = np.random.default_rng(seed)
     S_src = rng.standard_normal((Sb, M, M))
     S_src *= np.exp(rng.uniform(-14, 14, size=(Sb, M, M)))
     ss = rng.integers(0, Sb, size=L).astype(np.int32)
-    ds = rng.integers(0, B, size=L).astype(np.int32)   # duplicates likely
-    iv = rng.integers(0, M + 1, size=(L, N)).astype(np.int32)  # M+1 = pad
+    ds = rng.integers(0, B, size=L).astype(np.int32)
+    ds[1] = ds[0]                        # at least one duplicate dst slot
+    iv = rng.integers(0, M + 1, size=(L, N)).astype(np.int32)  # M = pad
     return S_src, ss, ds, iv
 
 
@@ -44,97 +41,101 @@ def _oracle(B, N, S_src, ss, ds, iv):
     return ref
 
 
-@pytest.mark.parametrize("dst_form", ["gemm", "gather"])
+def _run_ea(B, N, S_src, ss, ds, iv):
+    return np.asarray(_extend_add(
+        jnp.zeros((B, N, N), jnp.float64), jnp.asarray(S_src),
+        jnp.asarray(ss), jnp.asarray(ds), jnp.asarray(iv)))
+
+
 @pytest.mark.parametrize("B,N,M,Sb,L", [(6, 16, 24, 8, 13),
-                                        (4, 8, 8, 4, 9)])
-def test_wave_extend_add_bit_exact(B, N, M, Sb, L, dst_form, monkeypatch):
+                                        (4, 8, 8, 4, 9),
+                                        (2, 32, 20, 3, 7)])
+def test_extend_add_bit_exact(B, N, M, Sb, L):
     S_src, ss, ds, iv = _synthetic(B, N, M, Sb, L)
     ref = _oracle(B, N, S_src, ss, ds, iv)
+    np.testing.assert_array_equal(_run_ea(B, N, S_src, ss, ds, iv), ref)
 
-    # default (CPU take_along_axis + scatter-add) path
-    out_def = np.asarray(_extend_add(
-        jnp.zeros((B, N, N), jnp.float64), jnp.asarray(S_src),
-        jnp.asarray(ss), jnp.asarray(ds), jnp.asarray(iv), None))
-    np.testing.assert_array_equal(out_def, ref)
 
-    # wave path: the exact trace the f64-on-TPU production factor runs.
-    # Both destination placements must be bit-exact: the GEMM form is
-    # the TPU default (the gather composite hangs the remote compiler,
-    # ea_bisect 2026-08-20); gather stays as the opt-in fallback.
-    Lc = _ea_chunk_len_waves(N, M + 1)
-    wl = _dst_gather_waves(ds, B, Lc)
-    monkeypatch.setenv("NK_EA_FORCE_WAVES", "1")
-    monkeypatch.setenv("NK_EA_DST", dst_form)
-    _extend_add.clear_cache()   # force_waves is read at trace time
+@pytest.mark.parametrize("chunk", [1, 4])
+def test_extend_add_link_chunks(chunk, monkeypatch):
+    """Link chunking (bounded temporaries) splits duplicate destinations
+    across chunks; the accumulated result must not change."""
+    B, N, M, Sb, L = 3, 8, 12, 5, 11
+    S_src, ss, ds, iv = _synthetic(B, N, M, Sb, L, seed=3)
+    ref = _oracle(B, N, S_src, ss, ds, iv)
+    monkeypatch.setattr(mf_jax, "_ea_chunk_len", lambda *a: chunk)
+    _extend_add.clear_cache()        # chunk length is read at trace time
     try:
-        out_wave = np.asarray(_extend_add(
-            jnp.zeros((B, N, N), jnp.float64), jnp.asarray(S_src),
-            jnp.asarray(ss), jnp.asarray(ds), jnp.asarray(iv),
-            jnp.asarray(wl)))
+        out = _run_ea(B, N, S_src, ss, ds, iv)
     finally:
-        monkeypatch.delenv("NK_EA_FORCE_WAVES")
-        monkeypatch.delenv("NK_EA_DST")
+        monkeypatch.undo()
         _extend_add.clear_cache()
-    # pure selection at every step: BIT equality, not a tolerance
-    np.testing.assert_array_equal(out_wave, ref)
+    np.testing.assert_array_equal(out, ref)
 
 
-def test_three_way_split_covers_f64():
-    """The hi/mid/lo f32 split reassembles any f64 within f32's exponent
-    range exactly (3 x 24 >= 53 mantissa bits; a 2-way split demonstrably
-    does not). Outside f32's exponent range the split under/overflows —
-    the production factor path satisfies the precondition by Ruiz
-    equilibration (solver/mf.py::equilibrate) + bounded GESP growth."""
-    rng = np.random.default_rng(7)
-    x = rng.standard_normal(4096) * np.exp(rng.uniform(-60, 60, 4096))
-    hi = x.astype(np.float32)
-    r1 = x - hi.astype(np.float64)
-    mid = r1.astype(np.float32)
-    lo = (r1 - mid.astype(np.float64)).astype(np.float32)
-    back = (hi.astype(np.float64) + mid.astype(np.float64)) \
-        + lo.astype(np.float64)
-    np.testing.assert_array_equal(back, x)
-    # and the 2-way split does lose bits on full-width mantissas
-    two = hi.astype(np.float64) + r1.astype(np.float32).astype(np.float64)
-    assert (two != x).any()
-
-
-def test_f64_split_assembly_bit_exact(monkeypatch):
-    """The f64-on-TPU assembly one-hot runs as three f32 selection
-    passes over an exact hi/mid/lo split (solver/mf_jax.py::_assemble);
-    forced on CPU it must be BIT-EQUAL to the plain f64 one-hot."""
-    from nk_ocn_tracer_jacobian_precond_tpu.solver.mf_jax import _assemble
-
-    rng = np.random.default_rng(5)
-    B, N, W, nnz = 2, 8, 3, 12
+def _asm_case(seed, B=3, N=16, W=4, nnz=40, n_spill=5):
+    """ELL rows plus spill entries at positions the ELL part leaves
+    empty (build_plan's routing: each (row, col) arrives exactly once)."""
+    rng = np.random.default_rng(seed)
     nzval_ext = np.zeros(nnz + 1)
     nzval_ext[:nnz] = rng.standard_normal(nnz) * np.exp(
         rng.uniform(-10, 10, nnz))
     a_col = np.zeros((B, N, W), np.int32)
     a_csrc = np.full((B, N, W), nnz, np.int32)
-    # unique front column per (b, r, w) slot — the invariant the split
-    # path relies on (front columns are unique per row)
+    used = np.zeros((B, N, N), bool)
     for b in range(B):
         for r in range(N):
-            cols = rng.choice(N, size=W, replace=False)
-            nsl = rng.integers(1, W + 1)
-            a_col[b, r, :nsl] = np.sort(cols[:nsl])
-            a_csrc[b, r, :nsl] = rng.integers(0, nnz, nsl)
-    a_pos = np.full((B, 1), N * N, np.int32)
-    a_src = np.full((B, 1), nnz, np.int32)
-    p_arr = np.array([N, N - 2], np.int32)
-    args = (jnp.asarray(nzval_ext), jnp.asarray(a_col),
-            jnp.asarray(a_csrc), jnp.asarray(a_pos), jnp.asarray(a_src),
-            jnp.asarray(p_arr))
+            k = rng.integers(1, W + 1)
+            cols = np.sort(rng.choice(N, size=k, replace=False))
+            a_col[b, r, :k] = cols
+            a_csrc[b, r, :k] = rng.integers(0, nnz, k)
+            used[b, r, cols] = True
+    E = n_spill + 2                      # trailing entries are padding
+    a_pos = np.tile(N * N + np.arange(E, dtype=np.int32), (B, 1))
+    a_src = np.full((B, E), nnz, np.int32)
+    for b in range(B):
+        free = np.flatnonzero(~used[b].reshape(-1))
+        pos = rng.choice(free, size=n_spill, replace=False)
+        a_pos[b, :n_spill] = pos
+        a_src[b, :n_spill] = rng.integers(0, nnz, n_spill)
+    p_arr = np.array([N, N - 3, 0][:B], np.int32)
+    return nzval_ext, a_col, a_csrc, a_pos, a_src, p_arr
 
-    ref = np.asarray(_assemble(*args, N=N, P=N, spill=False,
-                               impl="onehot"))
-    monkeypatch.setenv("NK_ASM_F64_SPLIT", "force")
-    _assemble.clear_cache()
-    try:
-        out = np.asarray(_assemble(*args, N=N, P=N, spill=False,
-                                   impl="onehot"))
-    finally:
-        monkeypatch.delenv("NK_ASM_F64_SPLIT")
-        _assemble.clear_cache()
+
+def _asm_oracle(nzval_ext, a_col, a_csrc, a_pos, a_src, p_arr, N, P):
+    B = a_col.shape[0]
+    F = np.zeros((B, N, N))
+    for b in range(B):
+        for r in range(N):
+            for w in range(a_col.shape[2]):
+                F[b, r, a_col[b, r, w]] += nzval_ext[a_csrc[b, r, w]]
+        flat = F[b].reshape(-1)
+        for pos, src in zip(a_pos[b], a_src[b]):
+            if pos < N * N:
+                flat[pos] += nzval_ext[src]
+        for i in range(P):
+            if i >= p_arr[b]:
+                F[b, i, i] += 1.0
+    return F
+
+
+@pytest.mark.parametrize("P", [12, 16])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_assemble_with_spills(seed, P):
+    args = _asm_case(seed)
+    N = args[1].shape[1]
+    ref = _asm_oracle(*args, N=N, P=P)
+    out = np.asarray(_assemble(*map(jnp.asarray, args), N=N, P=P,
+                               spill=True))
     np.testing.assert_array_equal(out, ref)
+
+
+def test_assemble_spill_flag_without_spills():
+    """The engine compiles the spill scatter out (spill=False) when a
+    round holds only padding spill entries; both programs must agree."""
+    args = tuple(map(jnp.asarray, _asm_case(7, n_spill=0)))
+    N = args[1].shape[1]
+    F_on = _assemble(*args, N=N, P=N, spill=True)
+    F_off = _assemble(*args, N=N, P=N, spill=False)
+    np.testing.assert_array_equal(np.asarray(F_on), np.asarray(F_off))
+

@@ -1,6 +1,6 @@
 """The float32 accuracy story at depth (SURVEY §7 hard part #2).
 
-The TPU configuration is float32 factors + float64 device refinement
+The float32 configuration is float32 factors + float64 device refinement
 (GMRES-IR when element growth stalls plain refinement — measured growth is
 ~1e7 at gx3, which makes the raw float32 solve useless on its own). These
 tests force that exact configuration on CPU for a 60-level (gx3deep-class
@@ -43,7 +43,7 @@ def test_fp32_factor_refined_to_1e10_at_depth(deep_problem):
     matrix, maps = deep_problem
     mf = MultifrontalFactorization(matrix, impl="jax", maps=maps,
                                    refine_tol=1e-11)
-    # force the TPU precision regime regardless of host platform
+    # force the float32 factor regime (the default is float64)
     from nk_ocn_tracer_jacobian_precond_tpu.solver.mf_jax import (
         JaxMultifrontal)
     mf.engine = JaxMultifrontal(mf.sym, _scaled(mf), precision=jnp.float32)

@@ -59,3 +59,55 @@ def test_sharding_reduces_per_device_bytes(problem):
             assert r8["factor_dev"] == r1["factor_dev"] // 8
         else:
             assert r8["factor_dev"] == r1["factor_dev"]
+
+
+def test_pf_temp_bound_covers_compiled_programs(problem):
+    """memplan's envelope for the partial factor's XLA temporaries must
+    cover what this backend's compiler actually allocates, round by
+    round (the compiled memory analysis of the engine's own program)."""
+    import jax.numpy as jnp
+
+    from nk_ocn_tracer_jacobian_precond_tpu.solver import mf_jax
+    from nk_ocn_tracer_jacobian_precond_tpu.solver.memplan import (
+        pf_temp_bytes)
+    from nk_ocn_tracer_jacobian_precond_tpu.solver.symbolic import (
+        symbolic_from_matrix)
+    matrix, maps = problem
+    plans = mf_jax.build_plan(symbolic_from_matrix(maps, matrix), matrix)
+    for plan in plans:
+        F = jax.ShapeDtypeStruct((plan.B, plan.N, plan.N), jnp.float64)
+        p_arr = jax.ShapeDtypeStruct((plan.B,), jnp.int32)
+        native = plan.B <= 2
+        with jax.default_matmul_precision("highest"):
+            c = mf_jax._partial_factor.lower(
+                F, P=plan.P, p_arr=p_arr, tau=1e-8,
+                allow_native_lu=native).compile()
+        temp = c.memory_analysis().temp_size_in_bytes
+        assert temp <= pf_temp_bytes(plan.B, plan.P, plan.N, 8, native), (
+            plan.B, plan.P, plan.N)
+
+
+@pytest.mark.parametrize("n_devices", [1, 8])
+def test_peak_holds_partial_factor_working_set(problem, n_devices):
+    """Every round's high-water mark covers the partial-factor phase:
+    earlier rounds' factors, the input front, the temporaries and the
+    round's own outputs (factors + Schur stack)."""
+    from nk_ocn_tracer_jacobian_precond_tpu.solver import mf_jax
+    from nk_ocn_tracer_jacobian_precond_tpu.solver.memplan import (
+        pf_temp_bytes)
+    from nk_ocn_tracer_jacobian_precond_tpu.solver.symbolic import (
+        symbolic_from_matrix)
+    matrix, maps = problem
+    plans = mf_jax.build_plan(symbolic_from_matrix(maps, matrix), matrix,
+                              batch_multiple=n_devices)
+    mp = plan_memory(plans, n_devices=n_devices, bytes_per_elem=8)
+    fac_before = 0
+    for plan, r in zip(plans, mp.rounds):
+        front = plan.B * plan.N * plan.N * 8
+        temp = pf_temp_bytes(plan.B, plan.P, plan.N, 8,
+                             native_lu=plan.B <= 2 and n_devices == 1)
+        assert r["transient"] >= front + temp
+        assert r["highwater"] >= (fac_before + front + temp + r["factor"]
+                                  + plan.B * plan.M * plan.M * 8)
+        fac_before += r["factor"]
+    assert mp.peak_per_device == max(r["highwater_dev"] for r in mp.rounds)

@@ -72,25 +72,6 @@ def test_jax_engine_coupled_tracers(tmp_path):
     assert np.linalg.norm(A @ x - b) / np.linalg.norm(b) < 1e-10
 
 
-def test_own_rb_gather_rebuild_matches_scatter(problem, monkeypatch):
-    """The gather-rebuild form of the solve's row writes (_set_own with
-    an own_rb index map — the TPU path, where XLA serializes scatters)
-    must produce the same solution as the scatter form. Forced on via
-    NK_FORCE_OWN_RB since CPU defaults to scatters."""
-    matrix, maps = problem
-    rng = np.random.default_rng(3)
-    B = rng.standard_normal((matrix.flat_len, 3))
-    fac = MultifrontalFactorization(matrix, impl="jax", maps=maps,
-                                    refine_tol=1e-11)
-    X_scatter = fac.solve(B, refine=False)
-    monkeypatch.setenv("NK_FORCE_OWN_RB", "1")
-    fac2 = MultifrontalFactorization(matrix, impl="jax", maps=maps,
-                                     refine_tol=1e-11)
-    assert any(cc["own_rb"] is not None for cc in fac2.engine._consts)
-    X_rb = fac2.solve(B, refine=False)
-    np.testing.assert_array_equal(np.asarray(X_scatter), np.asarray(X_rb))
-
-
 def test_ell_spill_assembly_path(problem, monkeypatch):
     """Force the hybrid assembly's SPILL branch (rows wider than the ELL
     width fall back to the unique-index scatter): cap the 98th-percentile
@@ -114,10 +95,10 @@ def test_ell_spill_assembly_path(problem, monkeypatch):
     assert res.max() < 1e-11, res
 
 
-def test_assembly_impls_agree(problem):
-    """The three _assemble formulations (scatter / onehot / pallas-or-
-    fallback) must produce identical fronts for the same plan."""
-    import jax
+def test_assembly_matches_plan_oracle(problem):
+    """_assemble on a real plan's biggest leaf chunk (ELL rows, spills,
+    identity padding) must equal a numpy loop over the same plan arrays,
+    bit for bit: every front entry receives at most one contribution."""
     import jax.numpy as jnp
     matrix, maps = problem
     from nk_ocn_tracer_jacobian_precond_tpu.solver import mf_jax
@@ -128,16 +109,93 @@ def test_assembly_impls_agree(problem):
     p = max(plans, key=lambda q: q.B)       # biggest leaf chunk
     nz = np.zeros(matrix.nnz + 1)
     nz[:-1] = matrix.nzval
-    nzd = jnp.asarray(nz)
-    args = (nzd, jnp.asarray(p.a_col), jnp.asarray(p.a_csrc),
-            jnp.asarray(p.a_pos), jnp.asarray(p.a_src),
-            jnp.asarray(p.p_arr))
     spill = bool((p.a_pos < p.N * p.N).any())
-    F_sc = mf_jax._assemble(*args, N=p.N, P=p.P, spill=spill,
-                            impl="scatter")
-    F_oh = mf_jax._assemble(*args, N=p.N, P=p.P, spill=spill,
-                            impl="onehot")
-    np.testing.assert_array_equal(np.asarray(F_sc), np.asarray(F_oh))
+    F = np.asarray(mf_jax._assemble(
+        jnp.asarray(nz), jnp.asarray(p.a_col), jnp.asarray(p.a_csrc),
+        jnp.asarray(p.a_pos), jnp.asarray(p.a_src), jnp.asarray(p.p_arr),
+        N=p.N, P=p.P, spill=spill))
+    ref = np.zeros((p.B, p.N * p.N))
+    rows = np.arange(p.a_col.shape[1])[:, None] * p.N
+    for b in range(p.B):
+        np.add.at(ref[b], (rows + p.a_col[b]).ravel(), nz[p.a_csrc[b]].ravel())
+        real = p.a_pos[b] < p.N * p.N
+        np.add.at(ref[b], p.a_pos[b][real], nz[p.a_src[b][real]])
+    ref = ref.reshape(p.B, p.N, p.N)
+    ar = np.arange(p.P)
+    ref[:, ar, ar] += ar[None, :] >= p.p_arr[:, None]
+    np.testing.assert_array_equal(F, ref)
+
+
+def _dies_by_refcount(make):
+    """Build objects with make() -> (owner, watched...), drop the owner
+    with the cyclic garbage collector off, and report which watched
+    objects are still alive. Device buffers freed only by the cyclic
+    collector stay allocated for an unbounded time: a second
+    factorization in the same process then runs out of device memory."""
+    import gc
+    import weakref
+    gc.collect()
+    gc.disable()
+    try:
+        owner, *watched = make()
+        refs = [weakref.ref(w) for w in watched]
+        del owner, watched
+        return [r() is not None for r in refs]
+    finally:
+        gc.enable()
+
+
+def test_facade_frees_factors_without_gc(problem):
+    """The facade after a solve, a Newton refactor and a second solve
+    holds its engine, factors and refiner in no reference cycle."""
+    import jax
+    from nk_ocn_tracer_jacobian_precond_tpu.io.matrixfile import SparseMatrix
+    matrix, maps = problem
+
+    def make():
+        fac = MultifrontalFactorization(matrix, impl="jax", maps=maps)
+        B = np.random.default_rng(12).standard_normal((matrix.flat_len, 2))
+        fac.solve(B)
+        m2 = SparseMatrix(nzval=np.asarray(matrix.nzval) * 1.001,
+                          colind=matrix.colind, rowptr=matrix.rowptr,
+                          coupled_tracer_cnt=matrix.coupled_tracer_cnt)
+        fac.refactor(m2)
+        fac.solve(B)
+        leaf = jax.tree_util.tree_leaves(fac.engine.factors)[0]
+        return fac, fac.engine, fac._refiner, leaf
+
+    assert _dies_by_refcount(make) == [False, False, False]
+
+
+def test_refiner_krylov_programs_free_without_gc(problem):
+    """With no host preconditioner the refiner compiles and caches its
+    fused GMRES programs; those programs must not pin the refiner (and,
+    through it, the engine's factors)."""
+    import jax
+    from nk_ocn_tracer_jacobian_precond_tpu.solver.mf import equilibrate
+    from nk_ocn_tracer_jacobian_precond_tpu.solver.mf_jax import (
+        JaxMultifrontal)
+    from nk_ocn_tracer_jacobian_precond_tpu.solver.refine import (
+        DeviceRefiner)
+    from nk_ocn_tracer_jacobian_precond_tpu.solver.symbolic import (
+        symbolic_from_matrix)
+    matrix, maps = problem
+    scaled, dr, dc = equilibrate(matrix)
+    sym = symbolic_from_matrix(maps, matrix)
+
+    def make():
+        eng = JaxMultifrontal(sym, scaled)
+        ref = DeviceRefiner(eng, matrix, dr=dr, dc=dc, tol=1e-12)
+        B = np.random.default_rng(13).standard_normal((matrix.flat_len, 2))
+        X = ref.solve(B)
+        A = matrix.to_scipy()
+        rel = np.linalg.norm(A @ X - B, axis=0) / np.linalg.norm(B, axis=0)
+        assert rel.max() < 1e-10, rel
+        assert ref._fused_jit or ref._cycle_jit     # Krylov path ran
+        leaf = jax.tree_util.tree_leaves(eng.factors)[0]
+        return (eng, ref), eng, ref, leaf
+
+    assert _dies_by_refcount(make) == [False, False, False]
 
 
 def test_refactor_keeps_refiner_programs(problem):
